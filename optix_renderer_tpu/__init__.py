@@ -1,4 +1,4 @@
-"""optix_renderer_tpu — a TPU-native physically-based rendering framework.
+"""optix_renderer_tpu — a physically-based rendering framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 OptiX/OWL renderer ``dhawal1939/optix_renderer`` (see SURVEY.md):
@@ -11,7 +11,7 @@ OptiX/OWL renderer ``dhawal1939/optix_renderer`` (see SURVEY.md):
   estimator, and a full-MIS multi-bounce path tracer (``integrators/``)
 - progressive accumulation, g-buffers, camera model, render loop
   (``engine/``)
-- image-tile sharding across a TPU mesh (``parallel/``)
+- image-tile sharding across a device mesh (``parallel/``)
 - bilateral/a-trous denoiser, tonemap, image IO (``postprocess/``)
 
 The steady-state trace->shade->sample->accumulate loop runs entirely on

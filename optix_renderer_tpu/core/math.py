@@ -1,6 +1,6 @@
 """Vectorized device math.
 
-TPU-native equivalents of the reference's CUDA device helpers
+Batched equivalents of the reference's CUDA device helpers
 (``cuda_include/utils.cuh``), re-designed as batched jnp functions: every
 function operates on arrays whose leading dimensions are ray/pixel batch
 dimensions and whose trailing dimension holds vector components.  All math
@@ -55,13 +55,10 @@ def apply_mat(mat: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     Equivalent of ``apply_mat`` (cuda_include/utils.cuh:69-74).
     mat: (..., 3, 3) row-major, v: (..., 3) -> (..., 3).
 
-    Kept as einsum: A/B-measured 217.7 vs 201.3 Mrays/s on the PATH bench
-    against an explicit-madd expansion (XLA fuses the same-rank batched
-    dot well here).  The (R, 3, 3) x (R, L, 3) broadcast variant in
-    shading/ltc.py is the case where einsum lowers pathologically and
-    keeps its own elementwise expansion.
+    Expanded elementwise rather than as a dot, so no backend may compute
+    it in reduced precision (a float32 dot can run in TF32 on the GPU).
     """
-    return jnp.einsum("...ij,...j->...i", mat, v)
+    return jnp.sum(mat * v[..., None, :], axis=-1)
 
 
 def matrix_transpose(mat: jnp.ndarray) -> jnp.ndarray:

@@ -8,7 +8,7 @@ sample-for-sample against a CPU oracle, and keeps variance behaviour
 identical to the reference at equal spp.
 
 The state lives as one ``uint32`` lane per ray; the whole generator is a
-handful of VPU integer ops, fully fused by XLA into the consuming kernel.
+handful of integer ops, fully fused by XLA into the consuming kernel.
 ``jax.random`` is deliberately NOT used here (different stream semantics,
 not bit-comparable); it remains available elsewhere for non-replay use.
 """

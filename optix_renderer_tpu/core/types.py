@@ -3,7 +3,7 @@
 The reference's per-thread structs (``cuda_include/common.cuh``) become
 structure-of-arrays pytrees: every field is a batched jnp array with a
 leading ray/pixel dimension, so the whole renderer stays shape-static and
-vectorizes onto the VPU/MXU.  ``LaunchParams`` (common.cuh:80-121) is
+vectorizes.  ``LaunchParams`` (common.cuh:80-121) is
 split: per-frame state -> :class:`RenderState`; static scene data lives in
 ``scene.device.DeviceScene``.
 """

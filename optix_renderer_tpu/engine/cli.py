@@ -11,8 +11,8 @@ features without the GLFW window (include/viewer.hpp):
 * ``--record-camera`` — write the active camera back into the scene
   JSON's ``cameras`` list (the R/F key flow, viewer.hpp:802-845);
 * ``--profile DIR`` — jax.profiler trace of the render loop;
-* ``--devices N`` — image-row sharded rendering over a TPU mesh
-  (parallel.sharding; bit-identical to single-chip).
+* ``--devices N`` — image-row sharded rendering over a device mesh
+  (parallel.sharding; bit-identical to one device).
 
 Example:
   python -m optix_renderer_tpu.engine.cli --scene scenes/cornell/scene.json \\
@@ -122,6 +122,9 @@ def main(argv=None) -> int:
         jax.config.update("jax_platforms", "cpu")
     import jax
 
+    from ..utils.device import enable_compile_cache
+
+    enable_compile_cache()
     from ..postprocess.io import save_exr, save_npy, save_png
     from ..scene.config import SceneCamera
     from .renderer import Renderer
@@ -182,22 +185,12 @@ def main(argv=None) -> int:
             ds = sharding.replicate(r.device_scene, mesh)
             bvh = sharding.replicate(r.bvh, mesh)
             alive_frames = []
-            stat_frames = []
             t_loop = time.perf_counter()
             for _ in range(spp):
                 state, r.gbuffers, r.aux = frame(state, ds, bvh)
                 if "path_alive_counts" in r.aux:
                     alive_frames.append(r.aux["path_alive_counts"])
-                if "trace_overflow" in r.aux:
-                    stat_frames.append(
-                        (r.aux["trace_overflow"], r.aux["trace_retraced"],
-                         r.aux["trace_unresolved"])
-                    )
-            # real sync: one scalar from EVERY addressable shard —
-            # fetching only shard 0 would stop the clock while other
-            # devices may still be executing (overstating Mrays/s)
-            for sh in state.accum.addressable_shards:
-                float(sh.data[0, 0, 0])
+            jax.block_until_ready(state.accum)  # waits for every shard
             r.metrics["seconds"] += time.perf_counter() - t_loop
             r.state = state  # image()/checkpoints gather lazily
             # honest ray accounting, matching Renderer.render/metrics:
@@ -216,10 +209,6 @@ def main(argv=None) -> int:
                 )
                 rays += int(alive[:, :, 1:].sum())
                 r.metrics["alive_per_bounce"] = [int(a) for a in alive[-1][:, 0]]
-            for ov, rt, un in stat_frames:
-                r.metrics["cull_overflow"] += int(np.asarray(ov).sum())
-                r.metrics["cull_retraces"] += int(np.asarray(rt).sum())
-                r.metrics["cull_unresolved_tiles"] += int(np.asarray(un).sum())
             r.metrics["frames"] += spp
             r.metrics["rays_traced"] += rays
             log.info("sharded over %d devices (%s)", args.devices, mesh.devices.ravel()[0].platform)
@@ -247,13 +236,6 @@ def main(argv=None) -> int:
     m = r.metrics
     log_ok(log, "rendered %d frame(s) in %.2fs (%.1f Mrays/s honest, %.2f spp/s)"
            % (m["frames"], dt, m.get("mrays_per_sec", 0.0), m["frames"] / max(dt, 1e-9)))
-    if m.get("cull_retraces", 0):
-        log.warning(
-            "cluster culling overflowed on %d tile(s) across %d trace call(s); "
-            "results stayed exact via full-list re-traces — raise max_visits "
-            "to trade memory for speed",
-            m.get("cull_unresolved_tiles", 0), m["cull_retraces"],
-        )
 
     save_png(os.path.join(args.out, f"{name}.png"), img)
     if args.save_npy:
@@ -314,9 +296,6 @@ def main(argv=None) -> int:
             "rays_traced": m["rays_traced"],
             "mrays_per_sec": round(m.get("mrays_per_sec", 0.0), 2),
             "alive_per_bounce": m.get("alive_per_bounce", []),
-            "cull_overflow": m.get("cull_overflow", 0),
-            "cull_retraces": m.get("cull_retraces", 0),
-            "cull_unresolved_tiles": m.get("cull_unresolved_tiles", 0),
         },
     }
     with open(os.path.join(args.out, "render.json"), "w") as f:

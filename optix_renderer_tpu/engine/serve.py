@@ -2,11 +2,11 @@
 
 The reference's primary UX is a GLFW/ImGui window — FPS readout, runtime
 renderer combo, mouse orbit camera, camera-record/screenshot keys
-(include/viewer.hpp:65-148, 659-845).  A TPU render node is headless, so
-the TPU-native equivalent is a browser page served from the render
-process: the render loop keeps accumulating on-device, the page polls
-PNG frames, and camera/mode input round-trips as tiny JSON control
-messages (the host<->device boundary stays one accumulation state).
+(include/viewer.hpp:65-148, 659-845).  A render node is headless, so the
+equivalent here is a browser page served from the render process: the
+render loop keeps accumulating on-device, the page polls PNG frames, and
+camera/mode input round-trips as tiny JSON control messages (the
+host<->device boundary stays one accumulation state).
 
 Parity map (viewer.hpp):
 * FPS / frame-time readout (:667)        -> /status JSON + page statusbar
@@ -26,6 +26,7 @@ import json
 import threading
 import time
 
+import jax
 import numpy as np
 
 from ..scene.config import SceneCamera
@@ -346,8 +347,7 @@ class ViewerServer:
             if not done:
                 t0 = time.perf_counter()
                 state, gb, aux = self.r.render_step_detached()
-                # scalar fetch = real sync (see Renderer.render)
-                float(state.accum[0, 0, 0])
+                jax.block_until_ready(state.accum)
                 dt = time.perf_counter() - t0
                 with self.lock:
                     if self.epoch == epoch0:

@@ -1,6 +1,6 @@
 """Hit shading stage: Hit -> SurfaceInteraction via vectorized gathers.
 
-The TPU equivalent of the reference's closest-hit + miss programs
+The equivalent of the reference's closest-hit + miss programs
 (cuda_include/hit_miss.cuh:14-63): after traversal returns (tri_id, bary),
 gather triangle attributes and interpolate.
 
@@ -8,15 +8,11 @@ Two lowerings, dispatched statically on scene size:
 
 * small scenes (<= ONEHOT_MAX_TRIS): ALL per-triangle attributes live in
   one packed (T, K) matrix (scene.device.tri_pack) and the gather is a
-  single one-hot (R, T) @ (T, K) matmul — MXU work instead of the per-lane
-  dynamic gathers XLA lowers poorly on TPU (measured 3x the cost of the
-  trace itself at 512^2);
+  single one-hot (R, T) @ (T, K) matmul;
 * large scenes: direct dynamic gathers over the flat pools.
 """
 
 from __future__ import annotations
-
-import os
 
 import jax
 import jax.numpy as jnp
@@ -25,9 +21,6 @@ from ..core import math as cm
 from ..core.types import Hit, Ray, SurfaceInteraction
 from ..scene.device import ONEHOT_MAX_TRIS, PACK_SLICES, DeviceScene
 from ..scene.textures import sample_bilinear
-
-# A/B kill-switch for the coherent-trace winner-attr Pallas fetch
-_WINNER_ATTRS = os.environ.get("OPTIX_TPU_WINNER_ATTRS", "1") == "1"
 
 
 def _finalize(ds, rays, hit, parts, miss_color):
@@ -73,10 +66,9 @@ def _shade_onehot(ds: DeviceScene, rays: Ray, hit: Hit, miss_color) -> SurfaceIn
     T = ds.num_tris
     tid = jnp.maximum(hit.tri_id, 0)
     onehot = (tid[:, None] == jnp.arange(T, dtype=jnp.int32)[None, :]).astype(jnp.float32)
-    # Precision.HIGHEST: default TPU matmul precision multiplies in bf16,
-    # rounding every gathered attribute (hit positions of ~500-unit scenes
-    # get ~1.0 absolute error — larger than the shadow-ray epsilon).  The
-    # one-hot matmul is cheap (K=35), so pay for exact f32 passes.
+    # Precision.HIGHEST: a reduced-precision matmul (bf16 or TF32) would
+    # round every gathered attribute (hit positions of ~500-unit scenes
+    # get ~1.0 absolute error, larger than the shadow-ray epsilon).
     rows = jnp.dot(
         onehot, ds.tri_pack,
         preferred_element_type=jnp.float32,
@@ -135,296 +127,18 @@ def build_surface_interaction(
     return _shade_gather(ds, rays, hit, miss_color)
 
 
-_ONEHOT_MAX_MESHES = 512
-
-
-def _mesh_attr_rows(ds: DeviceScene, mesh_id: jnp.ndarray) -> jnp.ndarray:
-    """(N, 10) per-lane mesh attributes [diffuse3, emit3, alpha, is_light,
-    material_id, diffuse_tex] — exact-precision one-hot matmul for small
-    mesh tables (the TriangleMeshData record fetch of hit_miss.cuh via
-    SBT)."""
-    M = ds.mesh_diffuse.shape[0]
-    pack = jnp.concatenate(
-        [
-            ds.mesh_diffuse,
-            ds.mesh_emit,
-            ds.mesh_alpha[:, None],
-            ds.mesh_is_light.astype(jnp.float32)[:, None],
-            ds.mesh_material_id.astype(jnp.float32)[:, None],
-            ds.mesh_diffuse_tex.astype(jnp.float32)[:, None],
-        ],
-        axis=1,
-    )  # (M, 10)
-    if M > _ONEHOT_MAX_MESHES:
-        return pack[mesh_id]
-    onehot = (mesh_id[:, None] == jnp.arange(M, dtype=jnp.int32)[None, :]).astype(jnp.float32)
-    return jnp.dot(
-        onehot, pack,
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-
-def build_surface_interaction_fused(
-    ds: DeviceScene, rays: Ray, key: jnp.ndarray, cid: jnp.ndarray,
-    shade_tab: tuple, miss_color: jnp.ndarray | None = None,
-    cols: jnp.ndarray | None = None,
-) -> SurfaceInteraction:
-    """SurfaceInteraction straight from the cluster kernel's packed
-    (key, cid) outputs — ONE BVH.shade_tab group-A row gather per lane.
-
-    The TPU row gather is per-row bound (~28/40/45 ms per 1M rows at
-    widths 8/16/20), so fusing the old three gathers (geom decode 16 +
-    normals 12 + uv/mesh 8 cols) into one 20-col row halves the
-    post-trace cost.  The gathered row supplies v0/e1/e2 for the exact
-    Moller-Trumbore (t, u, v) recompute (bit-identical to the kernel's
-    winner selection inputs), the three corner normals, and the mesh id;
-    triangle area is recomputed from cross(e1, e2).  Group B (corner
-    uvs) is gathered only when a mode reads uvs/textures — jit DCE drops
-    it otherwise.  The per-mesh material row comes from the
-    exact-precision one-hot fetch (the SBT record equivalent).  Matches
-    hit_miss.cuh:14-50 at full fidelity.
-    """
-    from ..accel.pallas_cluster import GROUP_CLUSTER, _LOCAL_MASK
-
-    if miss_color is None:
-        miss_color = ds.miss_color
-    valid = cid >= 0
-    if cols is not None:
-        # winner-attr kernel output (accel.pallas_cluster.
-        # fetch_winner_attrs): row j is shade column j, already per-lane
-        c = lambda j: cols[j]
-        uv_col = lambda j: cols[20 + j]
-    else:
-        tri_sorted = jnp.where(
-            valid, cid * GROUP_CLUSTER + (key & _LOCAL_MASK), 0)
-        shade_a, shade_b = shade_tab
-        rows_a = jnp.take(shade_a, tri_sorted, axis=0)  # (N, 20)
-
-        # exact (t, u, v): same arithmetic as accel.pallas_cluster.
-        # _decode_hits, componentwise (column slices stay dense on the
-        # 128 lanes)
-        c = lambda j: rows_a[:, j]
-    v0x, v0y, v0z = c(0), c(1), c(2)
-    e1x, e1y, e1z = c(3), c(4), c(5)
-    e2x, e2y, e2z = c(6), c(7), c(8)
-    ox, oy, oz = rays.origin[:, 0], rays.origin[:, 1], rays.origin[:, 2]
-    dx, dy, dz = (rays.direction[:, 0], rays.direction[:, 1],
-                  rays.direction[:, 2])
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
-    inv = 1.0 / jnp.where(jnp.abs(det) < 1e-12, 1.0, det)
-    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
-    u = (tx * px + ty * py + tz * pz) * inv
-    qx = ty * e1z - tz * e1y
-    qy = tz * e1x - tx * e1z
-    qz = tx * e1y - ty * e1x
-    v = (dx * qx + dy * qy + dz * qz) * inv
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv
-
-    w = 1.0 - u - v
-    n_geom_x = w * c(9) + u * c(12) + v * c(15)
-    n_geom_y = w * c(10) + u * c(13) + v * c(16)
-    n_geom_z = w * c(11) + u * c(14) + v * c(17)
-    n_geom = cm.normalize(
-        jnp.stack([n_geom_x, n_geom_y, n_geom_z], axis=-1), eps=1e-30
-    )
-    mesh_id = c(18).astype(jnp.int32)
-    # area = 0.5 |e1 x e2| (same formula the loader/light lists use)
-    ax = e1y * e2z - e1z * e2y
-    ay = e1z * e2x - e1x * e2z
-    az = e1x * e2y - e1y * e2x
-    area = 0.5 * jnp.sqrt(ax * ax + ay * ay + az * az)
-
-    p = rays.origin + t[:, None] * rays.direction
-    vmask = valid[:, None]
-    zero3 = jnp.zeros_like(p)
-
-    rows = _mesh_attr_rows(ds, jnp.where(valid, mesh_id, 0))
-    diffuse = rows[:, 0:3]
-
-    if cols is None:
-        rows_b = jnp.take(shade_b, tri_sorted, axis=0)  # (N, 8); DCE-able
-        uv_col = lambda j: rows_b[:, j]
-    uv = jnp.stack([
-        w * uv_col(0) + u * uv_col(2) + v * uv_col(4),
-        w * uv_col(1) + u * uv_col(3) + v * uv_col(5),
-    ], axis=-1)
-    uv = jnp.abs(jnp.fmod(uv, 1.0))  # hit_miss.cuh:34-35
-    if ds.has_textures:
-        tex_id = rows[:, 9].astype(jnp.int32)
-        has_tex = tex_id >= 0
-        tex_rgba = sample_bilinear(ds.textures, tex_id, uv[:, 0], uv[:, 1])
-        diffuse = jnp.where(has_tex[:, None], tex_rgba[:, :3], diffuse)
-
-    return SurfaceInteraction(
-        hit=valid,
-        p=jnp.where(vmask, p, zero3),
-        uv=jnp.where(vmask, uv, 0.0),
-        n_geom=jnp.where(vmask, n_geom, zero3),
-        diffuse=jnp.where(vmask, diffuse, miss_color[None, :]),
-        alpha=jnp.where(valid, jnp.clip(rows[:, 6], 0.01, 1.0), 0.0),
-        emit=jnp.where(vmask, rows[:, 3:6], zero3),
-        is_light=valid & (rows[:, 7] > 0.5),
-        material_id=jnp.where(valid, rows[:, 8].astype(jnp.int32), 0),
-        area=jnp.where(valid, area, 0.0),
-    )
-
-
-def _morton7(q: jnp.ndarray) -> jnp.ndarray:
-    """Interleave three 7-bit int32 coordinates -> 21-bit Morton code
-    (bit-by-bit: 21 fused VPU ops, cheaper than magic-mask spreads here)."""
-    out = jnp.zeros_like(q[..., 0])
-    for bit in range(7):
-        out = out | (((q[..., 0] >> bit) & 1) << (3 * bit + 2))
-        out = out | (((q[..., 1] >> bit) & 1) << (3 * bit + 1))
-        out = out | (((q[..., 2] >> bit) & 1) << (3 * bit))
-    return out
-
-
-def _coherence_keys(rays: Ray, lo, hi) -> jnp.ndarray:
-    """Ray-sorting key: direction octant (high 3 bits) | origin Morton cell
-    (21 bits).  Rays sharing a key traverse near-identical cluster sets, so
-    the tile-frustum culling of accel.pallas_cluster stays tight even for
-    bounce rays."""
-    d = rays.direction
-    o = rays.origin
-    octant = (
-        (d[:, 0] < 0).astype(jnp.int32) * 4
-        + (d[:, 1] < 0).astype(jnp.int32) * 2
-        + (d[:, 2] < 0).astype(jnp.int32)
-    )
-    extent = jnp.maximum(hi - lo, 1e-20)
-    q = jnp.clip((o - lo) / extent * 127.0, 0.0, 127.0).astype(jnp.int32)
-    return (octant << 21) | _morton7(q)
-
-
 def trace_closest_si(
     ds: DeviceScene, bvh, rays: Ray, miss_color: jnp.ndarray | None = None,
-    coherent: bool = True, active: jnp.ndarray | None = None,
-    baked_tab: jnp.ndarray | None = None,
-):
-    """Trace + shade in one step, picking the fastest correct path for the
-    backend/scene size (the single entry point integrators should use).
-    Returns (SurfaceInteraction, trace stats dict — the cluster tier's
-    cull-overflow/re-trace observability, zeros on the other tiers).
-
-    ``coherent=False`` (bounce rays) first sorts rays by direction octant
-    + origin Morton cell and unsorts the hits after: the cluster tier
-    culls per ray tile, and incoherent tiles degenerate to visiting every
-    cluster in the frustum-union.  Results are bit-identical either way
-    (the cull is conservative and overflow is checked, so the closest hit
-    doesn't depend on tile grouping); sorting is pure overhead for small
-    scenes and skipped.
+    active: jnp.ndarray | None = None,
+) -> SurfaceInteraction:
+    """Trace + shade in one step (the single entry point integrators use).
 
     ``active`` (bool (N,), optional): lanes the caller will mask out
-    anyway (dead path lanes).  On the cluster tier these rays are
-    rewritten to start above the scene pointing up, so ray_t_bounds
-    assigns them t=0 and they cost nothing in the cull or the kernel
-    (and the coherence sort packs them into wholly-inert tiles).  The
-    SIMT reference gets this for free from divergence; a lane-vector
-    machine must say it explicitly.  Inactive lanes return miss.
+    anyway (dead path lanes).  They are traced with t_max = 0, so they
+    return miss and the walk skips them.
     """
-    from ..accel.pallas_cluster import zero_trace_stats
-    from ..accel.traverse import PALLAS_BRUTE_MAX_TRIS, _on_cpu, trace_closest
+    from ..accel.traverse import _INF, trace_closest
 
-    T = bvh.tri_v0.shape[0]
-    if not _on_cpu() and T > PALLAS_BRUTE_MAX_TRIS:
-        from ..accel.pallas_cluster import trace_closest_clusters_packed
-
-        # the active-lane rewrite moves dead-lane origins above the scene,
-        # which would break the shared-origin contract of a baked table
-        assert baked_tab is None or active is None, (
-            "baked_tab requires untouched shared-origin rays (active mask "
-            "lanes are rewritten to a different origin)"
-        )
-        if active is not None:
-            out_o = bvh.cluster_max.max(axis=0) + 1.0  # above everything
-            up = jnp.array([0.0, 1.0, 0.0], jnp.float32)
-            m = active[:, None]
-            rays = Ray(
-                origin=jnp.where(m, rays.origin, out_o[None, :]),
-                direction=jnp.where(m, rays.direction, up[None, :]),
-            )
-        if coherent:
-            from ..accel.pallas_cluster import (
-                GROUP_CLUSTER, _LOCAL_MASK, fetch_winner_attrs,
-            )
-
-            # baked_tab: shared-origin (primary) rays intersect with the
-            # rebaked table (pallas_cluster.bake_shared_origin_tab) — the
-            # caller asserts the origins match the baked one
-            key, cid, _t_eff, stats, (cids_l, cnts) = (
-                trace_closest_clusters_packed(
-                    bvh.tri_tab, bvh.cluster_min, bvh.cluster_max, rays,
-                    return_lists=True, baked_tab=baked_tab,
-                )
-            )
-            if _WINNER_ATTRS:
-                # per-winning-cluster Pallas fetch instead of the per-lane
-                # (N, 20)+(N, 8) row gathers (XLA lowers those at ~52
-                # ns/row: 55 ms of a 1M-ray frame).  Exact: when the
-                # overflow fallback replaced a tile's winner (absent from
-                # the pass-1 lists), lax.cond routes to the gather path.
-                def _gather_cols():
-                    tri_sorted = jnp.where(
-                        cid >= 0,
-                        cid * GROUP_CLUSTER + (key & _LOCAL_MASK), 0)
-                    ra = jnp.take(bvh.shade_tab[0], tri_sorted, axis=0)
-                    rb = jnp.take(bvh.shade_tab[1], tri_sorted, axis=0)
-                    return jnp.concatenate([ra, rb[:, :6]], axis=1).T
-
-                cols, _ok = fetch_winner_attrs(
-                    bvh.shade_gtab, cids_l, cnts, key, cid,
-                    rays.origin.shape[0], fallback_fn=_gather_cols,
-                    retraced=stats["retraced"],
-                )
-                si = build_surface_interaction_fused(
-                    ds, rays, key, cid, bvh.shade_tab, miss_color,
-                    cols=cols,
-                )
-                return si, stats
-        else:
-            # corridor-sorted rays have scattered origins — a baked
-            # shared-origin table is meaningless here and silently
-            # ignoring it would hide the caller's perf bug
-            assert baked_tab is None, (
-                "baked_tab only applies to coherent (shared-origin) traces"
-            )
-            from ..accel.pallas_cluster import corridor_keys_and_t_bounds
-
-            # corridor sort key + per-ray t bound from ONE supercluster
-            # sweep (key: first|mid|last supercluster along the ray —
-            # groups rays by traversal set, not geometry; measured
-            # per-tile visit unions 835k -> 552k on terrain bounces vs
-            # the old octant|origin-morton key, and the fused t bound
-            # saves the packed trace's own sweep)
-            keys, t_eff_u = corridor_keys_and_t_bounds(
-                bvh.cluster_min, bvh.cluster_max, rays)
-            perm = jnp.argsort(keys)
-            od = jnp.concatenate(
-                [rays.origin, rays.direction, t_eff_u[:, None]], axis=1
-            )  # (N, 7): one gather moves rays AND their t bounds
-            od_s = jnp.take(od, perm, axis=0)
-            sorted_rays = Ray(origin=od_s[:, 0:3], direction=od_s[:, 3:6])
-            key_s, cid_s, _t_eff, stats = trace_closest_clusters_packed(
-                bvh.tri_tab, bvh.cluster_min, bvh.cluster_max,
-                sorted_rays, refine=True, t_eff=od_s[:, 6]
-            )
-            # unsort the TWO packed kernel outputs (winning sorted tri
-            # ids are lane-order independent, so the shade gather happens
-            # after the unsort on the original rays) — one (N, 2) row
-            # gather instead of the old 4-col Hit permute
-            n = rays.origin.shape[0]
-            inv = jnp.zeros((n,), jnp.int32).at[perm].set(jnp.arange(n, dtype=jnp.int32))
-            pack = jnp.stack([key_s, cid_s], axis=1)
-            rows = jnp.take(pack, inv, axis=0)
-            key, cid = rows[:, 0], rows[:, 1]
-        si = build_surface_interaction_fused(
-            ds, rays, key, cid, bvh.shade_tab, miss_color
-        )
-        return si, stats
-    hit = trace_closest(bvh, rays)
-    return build_surface_interaction(ds, rays, hit, miss_color), zero_trace_stats()
+    t_max = _INF if active is None else jnp.where(active, _INF, 0.0)
+    hit = trace_closest(bvh, rays, t_max=t_max)
+    return build_surface_interaction(ds, rays, hit, miss_color)

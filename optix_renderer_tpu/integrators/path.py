@@ -7,16 +7,15 @@ is commented out; SURVEY §2.9 quirks 1/4/5/7/8 are fixed, and the frame
 convention follows deviceCode.cu:82 rather than path.cuh:162's swapped
 matrices).
 
-TPU design: the bounce loop is a ``lax.fori_loop`` over a static depth
-with an ``alive`` mask — every lane performs the NEE shadow trace and the
-BSDF bounce trace each iteration (masked), keeping shapes static.  Ray
+Design: the bounce loop is a ``lax.fori_loop`` over a static depth with
+an ``alive`` mask — every lane takes part in the NEE shadow trace and the
+BSDF bounce trace each iteration, keeping shapes static; lanes that cannot
+contribute are traced with t_max = 0, which the walk tier skips.  Ray
 compaction/sorting is a later perf layer; the estimator is already fully
 vectorized.
 """
 
 from __future__ import annotations
-
-import os
 
 import jax
 import jax.numpy as jnp
@@ -42,21 +41,13 @@ def _clamp_dot(a, b):
 
 _ONEHOT_MAX_LIGHTS = 512
 
-# NEE shadow-trace ray order: corridor-sorted (True, round-4 default) or
-# image-order (False).  prof_path round 5 measured image-order FASTER on
-# the terrain bounce-1 NEE (124 vs 150 ms — bounce-1 shadow origins are
-# primary hits, already image-coherent); A/B per scene with
-# OPTIX_TPU_NEE_SORT=0 or benchmarks/prof_nee.py.
-_NEE_SORT = os.environ.get("OPTIX_TPU_NEE_SORT", "1") == "1"
-
 
 def gather_light_attrs(ds: DeviceScene, lidx: jnp.ndarray):
     """Per-lane TriLight attribute fetch (sampleLight, path.cuh:6-14).
 
     Small light lists use one exact-precision one-hot matmul over a packed
-    (L, 16) attribute matrix — a single MXU pass instead of six per-lane
-    dynamic gathers (XLA lowers those poorly on TPU).  Returns
-    (v1, v2, v3, normal, emit, area).
+    (L, 16) attribute matrix instead of six per-lane dynamic gathers.
+    Returns (v1, v2, v3, normal, emit, area).
     """
     L = ds.num_lights
     if L > _ONEHOT_MAX_LIGHTS:
@@ -88,7 +79,7 @@ def path_color(
     ray_eps: float = 1e-3,
 ):
     """Radiance for each primary ray; returns (color (N, 3), rng_state,
-    alive_counts (max_depth, 3), trace_stats).  alive_counts columns per
+    alive_counts (max_depth, 3)).  alive_counts columns per
     bounce: [0] lanes alive (observability), [1] NEE shadow rays actually
     traced (lanes whose contribution is not provably zero), [2] bounce
     closest rays actually traced (valid BSDF samples) — honest ray
@@ -97,12 +88,8 @@ def path_color(
     Outer PATH-mode wrapping (deviceCode.cu:146-153): miss lanes get the
     background, direct light hits get raw emission; everything else is the
     path estimate (floored at EPS per channel, path.cuh:254-256).
-
-    The returned tuple's 4th element is the summed trace-stats dict
-    (cluster-tier cull overflow / checked re-traces) over all bounces.
     """
-    from ..accel.pallas_cluster import merge_trace_stats, zero_trace_stats
-    from ..accel.traverse import trace_any_with_stats
+    from ..accel.traverse import trace_any
     from ..engine.shade import trace_closest_si
 
     n = rays.origin.shape[0]
@@ -112,7 +99,6 @@ def path_color(
     v0 = cm.normalize(rays.origin - si.p, eps=1e-30)
     init = dict(
         alive_counts=jnp.zeros((max_depth, 3), jnp.int32),
-        trace_stats=zero_trace_stats(),
         color=jnp.zeros((n, 3), jnp.float32),
         tp=jnp.ones((n, 3), jnp.float32),
         alive=si.hit & ~si.is_light,
@@ -161,22 +147,15 @@ def path_color(
         # Lanes whose NEE contribution is provably zero need no visibility
         # query: dead lanes, zero light pdf, and light samples below the
         # BSDF hemisphere (both lobes return 0 outside same_hemisphere,
-        # shading/bsdf.py:78,88).  Their t_max = 0 makes the cluster
-        # tier's per-ray t bound cull them for free and the corridor sort
-        # pack them into wholly-inert tiles.  Exact: ``occluded`` is
-        # consumed only by nee_ok, which is false for these lanes either
-        # way.
-        # Shadow origins are the current bounce's scattered hit points:
-        # corridor-sort them like the bounce closest trace (coherent=
-        # False) — image-order shadow tiles pay the frustum-union of
-        # 1024 scattered rays in the tile-granular cluster cull
+        # shading/bsdf.py:78,88).  Their t_max = 0 makes the walk tier
+        # skip them.  Exact: ``occluded`` is consumed only by nee_ok,
+        # which is false for these lanes either way.
         shadow_needed = (
             alive & (light_pdf_w > 0.0) & jnp.any(brdf_nee != 0.0, axis=-1)
         )
-        occluded, any_stats = trace_any_with_stats(
+        occluded = trace_any(
             bvh, shadow_ray,
             t_max=jnp.where(shadow_needed, dist * (1.0 - 1e-3), 0.0),
-            refine=True, coherent=not _NEE_SORT,
         )
         nee_ok = shadow_needed & ~occluded
         nee = (
@@ -198,12 +177,9 @@ def path_color(
         brdf = material.evaluate(wi_local, wo_local, s["diffuse"], s["alpha"])
         dir_world = cm.normalize(cm.apply_mat(to_world, wi_local), eps=1e-30)
         bounce_ray = Ray(origin=s["p"] + s["n"] * ray_eps, direction=dir_world)
-        # bounce rays are incoherent: let the big-scene tier sort them;
         # lanes that cannot contribute (dead, or an invalid BSDF sample)
-        # are marked inactive so the cluster tier skips them entirely
-        bounce_si, closest_stats = trace_closest_si(
-            ds, bvh, bounce_ray, coherent=False, active=sample_ok
-        )
+        # are marked inactive: they return miss and the walk skips them
+        bounce_si = trace_closest_si(ds, bvh, bounce_ray, active=sample_ok)
 
         hit_light = sample_ok & bounce_si.hit & bounce_si.is_light
         d2 = jnp.sum((bounce_si.p - s["p"]) ** 2, axis=-1)
@@ -230,9 +206,6 @@ def path_color(
         )
         return dict(
             alive_counts=alive_counts,
-            trace_stats=merge_trace_stats(
-                s["trace_stats"], merge_trace_stats(any_stats, closest_stats)
-            ),
             color=color,
             tp=jnp.where(c, new_tp, s["tp"]),
             alive=continue_path,
@@ -245,15 +218,9 @@ def path_color(
         )
 
     # Bounce loop: static fori_loop over max_depth with per-lane alive
-    # masks.  Two alternatives were measured on v5e and rejected:
-    # * a while_loop with all-dead early exit costs 2.6x at depth 4
-    #   (82.6 vs 218.5 Mrays/s on the Cornell bench — the dynamic trip
-    #   count blocks XLA's cross-bounce scheduling/fusion), and Cornell-
-    #   like closed scenes keep >15% of lanes alive through depth 8, so
-    #   the exit rarely fires where it would matter;
-    # * true ray compaction (sort + gather to dense buffers) is a
-    #   pessimization under XLA: per-lane gathers cost ~57 ms per 1M rays,
-    #   far more than the masked arithmetic they would save.
+    # masks.  Cornell-like closed scenes keep >15% of lanes alive through
+    # depth 8, so an all-dead early exit rarely fires where it would
+    # matter; compaction is an open question (ROADMAP S4).
     out = jax.lax.fori_loop(0, max_depth, bounce, init)
 
     # EPS floor on the estimate (path.cuh:254-256), then the outer mode
@@ -261,4 +228,4 @@ def path_color(
     estimate = jnp.maximum(out["color"], EPS)
     color = jnp.where(si.is_light[:, None], si.emit, estimate)
     color = jnp.where(si.hit[:, None], color, ds.miss_color[None, :])
-    return color, out["rng"], out["alive_counts"], out["trace_stats"]
+    return color, out["rng"], out["alive_counts"]

@@ -43,9 +43,7 @@ def _stochastic_direct_sample(ds, si, wo_local, to_local, rng, ray_eps):
     """One light sample -> (unshadowed rgb, shadow ray dir, dist, rng).
 
     The visibility trace is NOT issued here: the caller batches all
-    n_samples shadow rays into one any-hit call (the Pallas kernels are
-    throughput-bound, so one (n_samples*N,) trace beats n_samples
-    dispatches — measured 1.55x on config 3).
+    n_samples shadow rays into one (n_samples*N,) any-hit call.
     """
     num_lights = ds.num_lights
     rng, u1, u2 = rnglib.lcg_randomf2(rng)  # rand1 (ratio.cuh:29)
@@ -87,9 +85,9 @@ def ratio_color(
     """RATIO-mode frame (deviceCode.cu:117-144).
 
     Returns (accumulated color = LTC, rng, aux buffers {ltc, sto_direct,
-    sto_no_vis} each (N, k)), trace_stats).
+    sto_no_vis} each (N, k)).
     """
-    from ..accel.traverse import trace_any_with_stats
+    from ..accel.traverse import trace_any
 
     ltc_color = ltc_direct(ds, rays, si)
 
@@ -115,9 +113,7 @@ def ratio_color(
         direction=jnp.concatenate(dirs, axis=0),
     )
     all_dist = jnp.concatenate(dists, axis=0)
-    occ_all, trace_stats = trace_any_with_stats(
-        bvh, all_rays, t_max=all_dist * (1.0 - 1e-3), refine=True
-    )  # scattered shadow origins: per-lane cull on the big-scene tier
+    occ_all = trace_any(bvh, all_rays, t_max=all_dist * (1.0 - 1e-3))
     occ = occ_all.reshape(n_samples, n)
 
     no_vis = sum(contribs) / n_samples
@@ -139,4 +135,4 @@ def ratio_color(
     sto_n = jnp.where(hit, jnp.where(is_l, emit_gray, g_no_vis), 0.0)
 
     aux = {"ltc": ltc_buf, "sto_direct": sto_d, "sto_no_vis": sto_n}
-    return ltc_buf, rng, aux, trace_stats
+    return ltc_buf, rng, aux

@@ -1,1 +1,1 @@
-"""Cross-chip parallelism: image-tile sharding over a TPU mesh."""
+"""Multi-device parallelism: image-tile and spp sharding over a device mesh."""

@@ -1,9 +1,10 @@
-"""Image-tile data parallelism over a TPU mesh (BASELINE config 5).
+"""Image-tile data parallelism over a device mesh.
 
 The reference is strictly single-GPU (``owlContextCreate(nullptr, 1)``,
-viewer.hpp:177); scaling is designed TPU-first here (SURVEY.md §2.4):
+viewer.hpp:177); scaling is added here (SURVEY.md §2.4):
 
-* a 1-D ``Mesh`` over the chips with axis ``"tiles"``;
+* a 1-D ``Mesh`` over the devices with axis ``"tiles"`` (the cards of one
+  host are joined all to all, so the mesh follows the algorithm alone);
 * the accumulation buffer (and g-buffers) are sharded by image rows;
 * scene arrays and the BVH are replicated — rendering is embarrassingly
   parallel, so the steady-state loop has **zero** cross-chip
@@ -66,7 +67,7 @@ def make_spp_sharded_frame_fn(
     ratio_samples: int = 4,
 ):
     """spp-parallel rendering: every chip renders the FULL image for a
-    different accumulation id and a ``psum`` over ICI combines the frames
+    different accumulation id and a ``psum`` combines the frames
     (the alternative axis SURVEY §2.4 names; the one place the steady
     state uses a collective).
 

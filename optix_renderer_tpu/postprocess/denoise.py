@@ -6,7 +6,7 @@ stub (include/viewer.hpp:847-962) plus an empty
 denoised buffers (ltc_ratio_estimator.py:5-6 reads stodirectDenoise.exr).
 This implements the real component: an edge-avoiding à-trous wavelet
 filter (Dammertz et al. 2010) guided by the normal/position g-buffers,
-as pure fused jnp (shifts + weighted sums — ideal VPU work).
+as pure fused jnp (shifts + weighted sums).
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ _B3 = (1.0 / 16.0, 1.0 / 4.0, 3.0 / 8.0, 1.0 / 4.0, 1.0 / 16.0)
 def _shift2d(x: jnp.ndarray, dy: int, dx: int) -> jnp.ndarray:
     """Shift with edge clamping; channel-FIRST layout (C, H, W).
 
-    (H, W, C) layouts waste 40-130x on TPU: the last dimension pads to
-    128 lanes, so a C=1 buffer occupies and computes as if C=128.
+    Channel-first keeps each plane a dense (H, W) array instead of a
+    small trailing channel axis.
     """
     if dy != 0:
         x = jnp.roll(x, dy, axis=-2)
@@ -60,7 +60,7 @@ def atrous_denoise(
         jnp.max(position.reshape(-1, 3), axis=0) - jnp.min(position.reshape(-1, 3), axis=0),
         1e-6,
     ).max()
-    # channel-first internally: (H, W, C) pads C to 128 lanes on TPU
+    # channel-first internally (see _shift2d)
     out = jnp.moveaxis(color, -1, 0)  # (C, H, W)
     nrm = jnp.moveaxis(normal, -1, 0)  # (3, H, W)
     pos = jnp.moveaxis(position, -1, 0) / pos_scale

@@ -153,7 +153,7 @@ def write_terrain_scene(
     """Sponza-class stress scene (BASELINE config 5): a rolling heightfield
     of ``2*(grid-1)^2`` triangles (grid=708 -> ~1M) inside the Cornell
     walls, lit by the Cornell area light.  Shared-vertex OBJ with smooth
-    per-vertex normals — exercises the loader, the clustered traversal
+    per-vertex normals — exercises the loader, the BVH-walk traversal
     tier, and the LBVH build at production scale.  Returns the JSON path.
     """
     os.makedirs(out_dir, exist_ok=True)
@@ -374,7 +374,7 @@ def write_gallery_scene(
     uvs), a sphere_grid^2 grid of smooth UV-spheres on box pedestals with
     textures/plain colors and Ns varying per object, and THREE area lights
     of different emission.  Default: 26 meshes, 4 textures, ~8.5k
-    triangles (cluster tier on TPU).  Returns the scene JSON path.
+    triangles (the BVH-walk tier).  Returns the scene JSON path.
     """
     os.makedirs(out_dir, exist_ok=True)
     tex_names = _write_gallery_textures(out_dir)

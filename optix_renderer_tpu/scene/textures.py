@@ -1,6 +1,6 @@
 """Bilinear texture sampling from the flat atlas.
 
-TPU has no texture units; this reproduces CUDA ``tex2D<float4>`` with
+Without hardware texture units this reproduces CUDA ``tex2D<float4>`` with
 LINEAR filtering and CLAMP addressing (the mode the reference uses for
 both mesh textures, hit_miss.cuh:42, and the LTC LUTs, viewer.hpp:322-327)
 as four gathers + lerp.  Texel centers sit at (i + 0.5) / size.

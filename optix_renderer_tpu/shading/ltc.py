@@ -3,8 +3,10 @@
 Vectorized re-design of ``cuda_include/ltc/ltc_utils.cuh``: the per-pixel
 loop over lights (deviceCode.cu:50-53) becomes a (rays x lights) batch —
 the whole polygon pipeline (translate, transform, clip, edge-integrate)
-runs as fused VPU arithmetic with no control flow (the clip is the gather
-table in ``polygon_clip``).
+runs as elementwise arithmetic with no control flow (the clip is the
+gather table in ``polygon_clip``).  On the GPU the same pipeline runs as
+one fused kernel (``shading.ltc_pallas``); the jnp version is the
+reference and the lowering for every other platform.
 """
 
 from __future__ import annotations
@@ -22,8 +24,7 @@ _LTC1 = LTC_ISO_1
 _LTC2 = LTC_ISO_2
 _LTC3 = LTC_ISO_3
 # all three 8x8 RGBA LUTs flattened into one (64, 12) matrix: the bilinear
-# corner fetch becomes a one-hot MXU matmul (per-lane gathers lower to
-# scalar loops on TPU — ~57 ms per 1M lanes, vs ~free on the MXU)
+# corner fetch becomes one exact-precision one-hot matmul
 _LTC_PACKED = np.concatenate(
     [np.asarray(LTC_ISO_1).reshape(64, 4),
      np.asarray(LTC_ISO_2).reshape(64, 4),
@@ -160,21 +161,9 @@ def integrate_over_polygon(
 ) -> jnp.ndarray:
     """Summed LTC radiance over all lights (ltc_utils.cuh:47-127), (R, 3).
 
-    Layout: every intermediate is a SEPARATE flat (L*R,) array per vector
-    component, rays dense on the minor axis.  Two earlier layouts were
-    measurably worse: an (R, L, 5, 3)-shaped pipeline padded the trailing
-    triple 3 -> 128 TPU lanes (~42x VPU waste; 6.9 ms for the LTC frame
-    stage at 512^2 x 2 lights), and the (L, R) two-axis version that fixed
-    it still padded the L-sized sublane axis 2 -> 8 (75% of every vreg
-    dead at 2 tri-lights).  Flat 1-D arrays tile densely regardless of the
-    light count; the per-light/per-ray broadcasts become ``repeat``/
-    ``tile`` that XLA fuses into the consumers.  Same arithmetic.
+    The fused kernel on the GPU, :func:`polygon_sum_xla` elsewhere (a
+    lowering-time platform choice: one traced program for every backend).
     """
-    from .polygon_clip import clip_polygon_c
-
-    R = p.shape[0]
-    L = light_v1.shape[0]
-
     # fused per-ray matrices: the reference chains to_local -> normalize
     # -> iso -> normalize (-> ltc_inv -> normalize).  normalize is
     # scale-invariant under matrix application, so the intermediate
@@ -183,21 +172,37 @@ def integrate_over_polygon(
     # replaces each chain, with a single normalize at the end.
     mat_a = _matmul33(iso_frame, to_local)
     mat_b = _matmul33(ltc_mat_inv, mat_a)
+    lights = (light_v1, light_v2, light_v3, light_normal, light_emit)
+    return jax.lax.platform_dependent(
+        p, diffuse, mat_a, mat_b, amplitude, lights,
+        cuda=polygon_sum_kernel, default=polygon_sum_xla)
 
-    # TPU hot path: the whole per-light polygon pipeline as ONE fused
-    # Pallas kernel (ltc_pallas) — 25 reads + 3 writes per ray, no
-    # intermediate HBM traffic (the XLA lowering below measured ~6.9 ms
-    # at 512^2 x 2 lights; the kernel ~60x less arithmetic-bound time).
-    from ..accel.traverse import _on_cpu
+
+def polygon_sum_kernel(p, diffuse, mat_a, mat_b, amplitude, lights):
+    """:func:`polygon_sum_xla` as one fused Pallas kernel."""
     from . import ltc_pallas
 
-    if ((not _on_cpu()) and ltc_pallas.LTC_KERNEL
-            and 0 < L <= ltc_pallas.MAX_KERNEL_LIGHTS):
-        lights = ltc_pallas.pack_lights(
-            light_v1, light_v2, light_v3, light_normal, light_emit)
-        return ltc_pallas.ltc_integrate_pallas(
-            p, diffuse, mat_a.reshape(R, 9), mat_b.reshape(R, 9),
-            amplitude, lights)
+    R = p.shape[0]
+    return ltc_pallas.ltc_integrate_pallas(
+        p, diffuse, mat_a.reshape(R, 9), mat_b.reshape(R, 9), amplitude,
+        ltc_pallas.pack_lights(*lights))
+
+
+def polygon_sum_xla(p, diffuse, mat_a, mat_b, amplitude, lights):
+    """Summed LTC radiance after frame fusion, in plain jnp: the reference
+    the kernel is checked against.
+
+    ``mat_a`` = iso @ to_local and ``mat_b`` = ltc_inv @ mat_a, (R, 3, 3);
+    ``lights`` = (v1, v2, v3, normal, emit), each (L, 3).  Every
+    intermediate is a SEPARATE flat (L*R,) array per vector component, so
+    the arrays stay dense whatever the light count; the per-light/per-ray
+    broadcasts become ``repeat``/``tile`` that XLA fuses into consumers.
+    """
+    from .polygon_clip import clip_polygon_c
+
+    light_v1, light_v2, light_v3, light_normal, light_emit = lights
+    R = p.shape[0]
+    L = light_v1.shape[0]
 
     def per_ray(v):  # (R,) -> (L*R,), light-major
         return jnp.tile(v, L)

@@ -1,51 +1,54 @@
-"""Fused Pallas kernel for the LTC polygon pipeline (TPU hot path).
+"""Fused Pallas kernel (Triton route) for the LTC polygon pipeline.
 
 The XLA lowering of :func:`optix_renderer_tpu.shading.ltc.integrate_over_polygon`
-is pure elementwise arithmetic plus two one-hot case-table matmuls, but it
+is elementwise arithmetic plus two one-hot case-table matmuls, and it
 materializes dozens of (L*R,) intermediates (and two (128, L*R) one-hot
-operands) through HBM — measured ~6.9 ms for the LTC stage at 512^2 x 2
-lights, ~60x the VPU flop time.  This kernel runs the whole per-light
-pipeline of ``ltc_utils.cuh:47-127`` — translate, isotropic/LTC transform,
-the 23-case hemisphere clip (``polygon_utils.cuh:33-120``), and the edge
-integrals — on (8, 128) ray blocks entirely in registers/VMEM: per ray it
-reads 25 floats (p, diffuse, amplitude, the two fused frame matrices) and
-writes 3, with zero intermediate traffic.
+operands) in device memory; the matmuls also break XLA's fusion.  This
+kernel runs the whole per-light pipeline of ``ltc_utils.cuh:47-127`` --
+translate, isotropic/LTC transform, the 23-case hemisphere clip
+(``polygon_utils.cuh:33-120``) and the edge integrals -- on a 1-D block of
+rays in registers: per ray it reads 25 floats (p, diffuse, amplitude, the
+two fused frame matrices) and writes 3, with no intermediate traffic.
 
 The arithmetic is operation-for-operation the same as the XLA path
 (``shading.ltc`` / ``shading.polygon_clip``); the only structural change is
 how the clip case table is fetched: instead of a one-hot matmul over the
 packed (128, 16) table, the (op, a, b) actions of each *reachable* case are
-resolved at trace time into a chain of per-case vector selects over the
+resolved at trace time into a chain of per-case selects over the
 precomputed slot values (the five possible edge intersections are computed
 once per clip).  Cases outside the table yield vc = 0 exactly like the
 table's default rows, and slot values for vc = 0 lanes are never read by
 the masked edge integral.
+
+Lights are visited by an in-kernel loop that reads each light's row as
+scalars, so the light count is only a loop bound.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from .polygon_clip import _CASES, _COPY
 
-LANES = 128
-_BLOCK_RAYS = 8 * LANES
+BLOCK_RAYS = 256  # rays per program (a power of two, as Triton requires)
+_NUM_WARPS = 4
 
-# per-ray input channel layout of the packed (25, R, 128) operand
+# per-ray input channel layout of the packed (N_IN_PAD, R) operand
 _IN_P = 0        # 0:3   shading point
 _IN_DIFF = 3     # 3:6   diffuse albedo
 _IN_AMP = 6      # 6     LTC amplitude
 _IN_MA = 7       # 7:16  row-major iso @ to_local (diffuse-clip frame)
 _IN_MB = 16      # 16:25 row-major ltc_inv @ iso @ to_local (GGX frame)
 N_IN = 25
+_N_IN_PAD = 32   # channel axis padded to a power of two
+_N_OUT_PAD = 4   # rgb + one pad channel
 
-# light row layout of the (L, 16) operand (lane-padded to 16)
+# light row layout of the (Lpad, 16) operand
 _L_V1, _L_V2, _L_V3, _L_N, _L_EMIT = 0, 3, 6, 9, 12
 
 # cases reachable when the input is a triangle with vcount == 3
@@ -72,7 +75,7 @@ def _iz0(lx, ly, lz, rx, ry, rz):
 
 
 def _clip(vx, vy, vz, vcount, cases):
-    """23-case hemisphere clip on 5 slot-component lists (8, 128).
+    """23-case hemisphere clip on 5 slot-component lists.
 
     Static-select edition of polygon_clip.clip_polygon_c: the reachable
     ``cases`` are resolved at trace time; each output slot chains one
@@ -152,12 +155,13 @@ def _poly_integral(px, py, pz, vc):
 
 
 def _ltc_kernel(n_lights: int, inp_ref, lgt_ref, out_ref):
-    """One (8, 128) ray block x all lights; accumulates rgb into out_ref."""
-    c = lambda i: inp_ref[i]  # (8, 128)
+    """One block of rays x all lights; writes rgb rows 0-2 of out_ref."""
+    c = lambda i: inp_ref[i, :]  # (BLOCK_RAYS,)
     px, py, pz = c(_IN_P), c(_IN_P + 1), c(_IN_P + 2)
     amp = c(_IN_AMP)
     ma = [c(_IN_MA + k) for k in range(9)]
     mb = [c(_IN_MB + k) for k in range(9)]
+    diff = [c(_IN_DIFF + ch) for ch in range(3)]
 
     def xform(m, v):
         x, y, z = v
@@ -167,9 +171,8 @@ def _ltc_kernel(n_lights: int, inp_ref, lgt_ref, out_ref):
             m[6] * x + m[7] * y + m[8] * z,
         )
 
-    acc = [jnp.zeros_like(px) for _ in range(3)]
-    for l in range(n_lights):  # static unroll (L is a trace-time constant)
-        lf = lambda j: lgt_ref[l, j]  # scalar, broadcasts
+    def light(l, acc):
+        lf = lambda j: lgt_ref[l, j]  # scalar, broadcasts over the block
         l1 = _norm3(lf(_L_V1) - px, lf(_L_V1 + 1) - py, lf(_L_V1 + 2) - pz)
         l2 = _norm3(lf(_L_V2) - px, lf(_L_V2 + 1) - py, lf(_L_V2 + 2) - pz)
         l3 = _norm3(lf(_L_V3) - px, lf(_L_V3 + 1) - py, lf(_L_V3 + 2) - pz)
@@ -187,7 +190,7 @@ def _ltc_kernel(n_lights: int, inp_ref, lgt_ref, out_ref):
         diffuse_shading = _poly_integral(dx, dy, dz, dvc)
 
         # second clip: LTC-transformed ORIGINAL triangle with the first
-        # clip's vertex count — the reference's sequence (ltc_utils.cuh:94-101)
+        # clip's vertex count -- the reference's sequence (ltc_utils.cuh:94-101)
         t1, t2, t3 = xform(mb, l1), xform(mb, l2), xform(mb, l3)
         gx, gy, gz, gvc = _clip(
             slots(t1, t2, t3, 0), slots(t1, t2, t3, 1), slots(t1, t2, t3, 2),
@@ -196,11 +199,13 @@ def _ltc_kernel(n_lights: int, inp_ref, lgt_ref, out_ref):
 
         d = jnp.where(facing, diffuse_shading, 0.0)
         g = jnp.where(facing, ggx_shading, 0.0)
-        for ch in range(3):
-            acc[ch] = acc[ch] + (c(_IN_DIFF + ch) * d + amp * g) * lf(_L_EMIT + ch)
+        return tuple(acc[ch] + (diff[ch] * d + amp * g) * lf(_L_EMIT + ch)
+                     for ch in range(3))
 
+    zero = jnp.zeros_like(px)
+    acc = jax.lax.fori_loop(0, n_lights, light, (zero, zero, zero))
     for ch in range(3):
-        out_ref[ch] = acc[ch]
+        out_ref[ch, :] = acc[ch]
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
@@ -213,44 +218,36 @@ def ltc_integrate_pallas(
     lights: jnp.ndarray,       # (L, 16) rows [v1 v2 v3 normal emit pad]
     interpret: bool = False,
 ) -> jnp.ndarray:
-    """Summed LTC radiance over all lights, (R, 3) — the fused-kernel
+    """Summed LTC radiance over all lights, (R, 3) -- the fused-kernel
     equivalent of ltc.integrate_over_polygon after frame fusion."""
     n = p.shape[0]
     L = lights.shape[0]
     if L == 0:
         return jnp.zeros((n, 3), jnp.float32)
-    blocks = -(-n // _BLOCK_RAYS)
-    n_pad = blocks * _BLOCK_RAYS
-    pad = n_pad - n
-
-    chans = (
-        [p[:, a] for a in range(3)]
-        + [diffuse[:, a] for a in range(3)]
-        + [amplitude]
-        + [mat_a[:, k] for k in range(9)]
-        + [mat_b[:, k] for k in range(9)]
-    )
-    inp = jnp.stack([jnp.pad(ch, (0, pad)) for ch in chans], axis=0)
-    inp = inp.reshape(N_IN, blocks * 8, LANES)
+    n_pad = pl.cdiv(n, BLOCK_RAYS) * BLOCK_RAYS
+    inp = jnp.concatenate(
+        [p, diffuse, amplitude[:, None], mat_a, mat_b,
+         jnp.zeros((n, _N_IN_PAD - N_IN), jnp.float32)], axis=1)
+    inp = jnp.pad(inp, ((0, n_pad - n), (0, 0))).T  # (32, n_pad)
+    # light rows padded to a power of two; the kernel loops over L only
+    lights = jnp.pad(lights, ((0, pl.next_power_of_2(L) - L), (0, 0)))
 
     out = pl.pallas_call(
         functools.partial(_ltc_kernel, L),
-        grid_spec=pl.GridSpec(
-            grid=(blocks,),
-            in_specs=[
-                pl.BlockSpec((N_IN, 8, LANES), lambda t: (0, t, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((L, 16), lambda t: (0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((3, 8, LANES), lambda t: (0, t, 0),
-                                   memory_space=pltpu.VMEM),
-        ),
-        out_shape=jax.ShapeDtypeStruct((3, blocks * 8, LANES), jnp.float32),
+        grid=(n_pad // BLOCK_RAYS,),
+        in_specs=[
+            pl.BlockSpec((_N_IN_PAD, BLOCK_RAYS), lambda i: (0, i)),
+            pl.BlockSpec(lights.shape, lambda i: (0, 0)),
+        ],
+        out_specs=pl.BlockSpec((_N_OUT_PAD, BLOCK_RAYS), lambda i: (0, i)),
+        out_shape=jax.ShapeDtypeStruct((_N_OUT_PAD, n_pad), jnp.float32),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=_NUM_WARPS,
+                                                num_stages=1),
         interpret=interpret,
+        name="ltc_polygon",
     )(inp, lights)
-
-    return out.reshape(3, n_pad)[:, :n].T
+    return out[:3, :n].T
 
 
 def pack_lights(light_v1, light_v2, light_v3, light_normal, light_emit):
@@ -260,9 +257,3 @@ def pack_lights(light_v1, light_v2, light_v3, light_normal, light_emit):
     return jnp.concatenate(
         [light_v1, light_v2, light_v3, light_normal, light_emit, pad], axis=1
     )
-
-
-# lights above this count fall back to the XLA path (the kernel unrolls
-# the light loop statically; Cornell/gallery-class scenes are far below)
-MAX_KERNEL_LIGHTS = int(os.environ.get("OPTIX_TPU_LTC_MAX_LIGHTS", "64"))
-LTC_KERNEL = os.environ.get("OPTIX_TPU_LTC_KERNEL", "1") == "1"

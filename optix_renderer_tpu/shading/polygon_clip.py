@@ -1,6 +1,6 @@
 """Branchless polygon clipping to the upper hemisphere (z >= 0).
 
-TPU re-design of ``clipPolygon`` (cuda_include/ltc/polygon_utils.cuh:33-120):
+Vectorized re-design of ``clipPolygon`` (cuda_include/ltc/polygon_utils.cuh:33-120):
 the reference encodes (vertex_count, per-vertex z>0) into a bitmask and
 switches over 23 precomputed cases.  Here each case's *final* vertex values
 are resolved statically (the reference's in-place assignment sequences are
@@ -87,14 +87,12 @@ OP_TABLE = _OP
 A_TABLE = _A
 B_TABLE = _B
 # packed (128, 16) f32 row per case [vc | op*5 | a*5 | b*5] — fetched with
-# ONE one-hot MXU matmul instead of four per-lane gathers (XLA lowers
-# per-lane gathers to scalar loops on TPU: ~57 ms per 1M lanes)
+# ONE one-hot matmul instead of four per-lane gathers
 CASE_TABLE = np.concatenate(
     [_VC[:, None], _OP, _A, _B], axis=1
 ).astype(np.float32)
 # transposed (16, 128) for the componentwise core: the matmul output is
-# (16, N) with the BATCH minor — N stays dense on the 128 TPU lanes
-# instead of padding a 16-wide trailing dim to 128
+# (16, N) with the BATCH on the minor axis
 CASE_TABLE_T = CASE_TABLE.T.copy()
 
 
@@ -123,11 +121,11 @@ def _iz0_c(lx, ly, lz, rx, ry, rz):
 
 
 def clip_polygon_c(vx, vy, vz, vcount, tri_input: bool = False):
-    """Componentwise clip core: the hot layout for TPU.
+    """Componentwise clip core: the layout of the hot paths.
 
     ``vx``/``vy``/``vz`` are length-5 lists of same-shape batch arrays
-    (one per vertex slot, components separate — a trailing (5, 3) axis
-    pair would pad 3 -> 128 lanes on TPU and waste ~42x of the VPU).
+    (one per vertex slot, components separate, so every array is a dense
+    batch with no small trailing axis).
     Returns ``(ox, oy, oz, vc)`` with the same list-of-5 structure.
     Contract identical to :func:`clip_polygon`.
 
@@ -144,9 +142,9 @@ def clip_polygon_c(vx, vy, vz, vcount, tri_input: bool = False):
     )
     mask = jnp.clip(vcount + bits, 0, 127)
 
-    # case-row fetch: one one-hot MXU matmul.  bf16 is EXACT here (0/1
+    # case-row fetch: one one-hot matmul.  bf16 is EXACT here (0/1
     # one-hot x integer table values < 128).  The (128, N) one-hot and
-    # (16, N) output keep the BATCH on the minor axis — dense lanes.
+    # (16, N) output keep the BATCH on the minor axis.
     flat = mask.reshape(-1)
     onehot = (jnp.arange(128, dtype=jnp.int32)[:, None] == flat[None, :]).astype(jnp.bfloat16)
     rows = jax.lax.dot_general(

@@ -13,10 +13,7 @@ Usage: python tests/goldens/generate.py
 import os
 import sys
 
-os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
@@ -80,6 +77,7 @@ def render_gallery(only=None):
 if __name__ == "__main__":
     import tempfile
 
+    jax.config.update("jax_platforms", "cpu")  # goldens are CPU renders
     imgs = render_all(tempfile.mkdtemp())
     imgs.update(render_gallery())
     for name, img in imgs.items():

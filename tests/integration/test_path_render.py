@@ -78,7 +78,7 @@ def test_direct_matches_oracle(scene):
         )
         rays = Ray(origin=f32(cam), direction=f32([0.0, 0.0, 1.0]))
         rstate = rnglib.make_rng(seed, jnp.arange(m, dtype=jnp.uint32))
-        color, _, _, _ = path_color(ds, r.bvh, rays, si, rstate, max_depth=1)
+        color, _, _ = path_color(ds, r.bvh, rays, si, rstate, max_depth=1)
         c = np.asarray(color)
         return c.mean(0), c.std(0) / np.sqrt(m)
 

@@ -73,9 +73,9 @@ def test_sharded_state_stays_sharded(scene):
 
 
 def test_sharded_big_scene_terrain(tmp_path):
-    """BASELINE config 5 wiring: a >4096-triangle scene (clustered tier on
-    TPU, BVH-walk tier on CPU) renders row-sharded over the virtual mesh,
-    bit-identical to single-chip."""
+    """BASELINE config 5 wiring: a >4096-triangle scene (the BVH-walk
+    tier) renders row-sharded over the virtual mesh, bit-identical to a
+    single device."""
     import numpy as np
 
     from optix_renderer_tpu.engine.modes import RendererType
